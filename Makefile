@@ -7,7 +7,7 @@
 all: native
 
 native:
-	$(MAKE) -s -C ngsdist_tpu/native
+	$(MAKE) -s -C ngsdist_jax/native
 
 test: native
 	python -m pytest tests/ -q
@@ -19,4 +19,4 @@ baseline:
 	python tests/refharness/measure_cpu_baseline.py
 
 clean:
-	rm -rf ngsdist_tpu/native/build tests/refharness/build
+	rm -rf ngsdist_jax/native/build tests/refharness/build

@@ -14,7 +14,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ngsdist_tpu import Params, run  # noqa: E402
+from ngsdist_jax import Params, run  # noqa: E402
 
 N_IND, N_SITES = 12, 2000
 rng = np.random.default_rng(42)
@@ -51,7 +51,7 @@ with tempfile.TemporaryDirectory() as td:
         for s in range(N_SITES):
             b = rng.choice(4, size=2, replace=False)
             fh.write(f"chr1\t{s+1}\t{bases[b[0]]}\t{bases[b[1]]}\n")
-    from ngsdist_tpu.parallel import make_mesh
+    from ngsdist_jax.parallel import make_mesh
 
     pars = Params(in_geno=geno, in_probs=True, indep_geno=True, evol_model=6,
                   in_pos=pos, n_ind=N_IND, n_sites=N_SITES,
@@ -62,8 +62,8 @@ with tempfile.TemporaryDirectory() as td:
     # 4) popgen toolkit: per-site MAFs from the same GLs.
     import jax.numpy as jnp
 
-    from ngsdist_tpu import popgen
-    from ngsdist_tpu.io import readers
+    from ngsdist_jax import popgen
+    from ngsdist_jax.io import readers
 
     GL = readers.read_geno(geno, False, True, False, N_IND, N_SITES)
     mafs = popgen.est_maf_sites(jnp.asarray(GL))

@@ -1,14 +1,14 @@
 /* Minimal drop-in for the subset of <gsl/gsl_rng.h> used by the
  * reference ngsDist binary (alloc/set/uniform/free of the "taus"
  * generator), backed by this repo's independent Tausworthe
- * implementation (ngsdist_tpu/native/src/taus.h).  Used only by the
+ * implementation (ngsdist_jax/native/src/taus.h).  Used only by the
  * test harness to build the reference binary in an image without GSL;
  * it is NOT part of the framework. */
 #ifndef NGSDIST_TEST_GSL_RNG_SHIM_H
 #define NGSDIST_TEST_GSL_RNG_SHIM_H
 
 #include <stdlib.h>
-#include "../../../../ngsdist_tpu/native/src/taus.h"
+#include "../../../../ngsdist_jax/native/src/taus.h"
 
 typedef struct {
   const char *name;

@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-from ngsdist_tpu import cli, runner
-from ngsdist_tpu.config import Params
-from ngsdist_tpu.utils import checkpoint as ckpt
-from ngsdist_tpu.utils.profiling import Throughput
+from ngsdist_jax import cli, runner
+from ngsdist_jax.config import Params
+from ngsdist_jax.utils import checkpoint as ckpt
+from ngsdist_jax.utils.profiling import Throughput
 
 
 def _write_gt(path, rng, S, N):
@@ -44,8 +44,8 @@ def test_checkpoint_resume_identical_output(gt_file, tmp_path):
     pars = _pars(gt_file, out_part)
     with open(out_part, "w") as fh:
         mats = runner.run(_pars(gt_file, str(tmp_path / "x.dist")), engine="exact")
-        from ngsdist_tpu.io import writers
-        from ngsdist_tpu.io.readers import default_labels
+        from ngsdist_jax.io import writers
+        from ngsdist_jax.io.readers import default_labels
 
         for m in mats[:2]:
             writers.write_dist_matrix(fh, default_labels(8), m)
@@ -119,7 +119,7 @@ def test_cli_throughput_runs(gt_file, tmp_path, capsys):
 
 
 def test_read_pos_dist():
-    from ngsdist_tpu.io.readers import read_pos_dist
+    from ngsdist_jax.io.readers import read_pos_dist
 
     rows = [["chr1", "100"], ["chr1", "150"], ["chr2", "10"], ["chr2", "11"]]
     d = read_pos_dist(rows, 4)
@@ -130,8 +130,8 @@ def test_read_pos_dist():
 
 
 def test_read_pos_dist_invalid_distance():
-    from ngsdist_tpu.config import NgsDistError
-    from ngsdist_tpu.io.readers import read_pos_dist
+    from ngsdist_jax.config import NgsDistError
+    from ngsdist_jax.io.readers import read_pos_dist
 
     with pytest.raises(NgsDistError):
         read_pos_dist([["c", "5"], ["c", "5"]], 2)  # distance 0 < 1
@@ -141,8 +141,8 @@ def test_read_pos_dist_prevalidation():
     """Reference order (read_data.cpp:165-218): EXACTLY n_sites kept
     rows with >= 2 columns are required BEFORE any row is scanned — a
     bad-distance row must not be reached when the count is wrong."""
-    from ngsdist_tpu.config import NgsDistError
-    from ngsdist_tpu.io.readers import read_pos_dist
+    from ngsdist_jax.config import NgsDistError
+    from ngsdist_jax.io.readers import read_pos_dist
 
     with pytest.raises(NgsDistError, match="wrong number of lines"):
         read_pos_dist([["c", "5"], ["c", "5"], ["c", "5"]], 2)
@@ -181,7 +181,7 @@ def test_stdin_binary_routes_through_native_reader(tmp_path):
                 "--n_ind", "7", "--n_sites", "80", "--seed", "1",
                 "--engine", "exact", "--out", out]
         proc = subprocess.run(
-            [_sys.executable, "-m", "ngsdist_tpu"] + args,
+            [_sys.executable, "-m", "ngsdist_jax"] + args,
             input=open(path, "rb").read() if mode == "stdin" else None,
             capture_output=True, env=_subproc_env(), timeout=300,
         )
@@ -205,7 +205,7 @@ def test_stdin_text_native_reader_api(tmp_path):
     npy = str(tmp_path / "got.npy")
     code = (
         "import sys, numpy as np\n"
-        "from ngsdist_tpu.io import readers\n"
+        "from ngsdist_jax.io import readers\n"
         "g = readers.read_geno('-', False, True, False, 5, 40)\n"
         f"np.save({npy!r}, g)\n"
     )
@@ -214,7 +214,7 @@ def test_stdin_text_native_reader_api(tmp_path):
         capture_output=True, env=_subproc_env(), timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-1500:]
-    from ngsdist_tpu.io import readers
+    from ngsdist_jax.io import readers
 
     want = readers.read_geno(path, False, True, False, 5, 40)
     np.testing.assert_array_equal(np.load(npy), want)
@@ -224,8 +224,8 @@ def test_read_pos_dist_header_is_reference_hang(capsys):
     """A position column that strtod-parses to 0 makes the reference
     re-scan the same buffer slot forever (read_data.cpp:188-195);
     reproduced as a clean fatal AFTER the reference's skip banner."""
-    from ngsdist_tpu.config import NgsDistError
-    from ngsdist_tpu.io.readers import read_pos_dist
+    from ngsdist_jax.config import NgsDistError
+    from ngsdist_jax.io.readers import read_pos_dist
 
     with pytest.raises(NgsDistError, match="never terminates"):
         read_pos_dist([["chr", "pos"], ["chr1", "100"]], 2)
@@ -244,7 +244,7 @@ def test_signals_graceful_stop(gt_file, tmp_path):
     import os
     import signal as _sig
 
-    from ngsdist_tpu.utils import signals
+    from ngsdist_jax.utils import signals
 
     signals.arm()
     try:

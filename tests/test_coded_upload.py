@@ -22,8 +22,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from ngsdist_tpu.core import distance as dist
-from ngsdist_tpu.utils.hostmem import CodedProbs, derive_codes
+from ngsdist_jax.core import distance as dist
+from ngsdist_jax.utils.hostmem import CodedProbs, derive_codes
 
 SCORE = np.array([[0, 0.5, 1], [0.5, 0, 0.5], [1, 0.5, 0]])
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -129,7 +129,7 @@ class TestPutProbs:
 
 @pytest.mark.slow
 class TestEndToEnd:
-    """CLI surface in an f32 (x64-off) subprocess — the real-TPU
+    """CLI surface in an f32 (x64-off) subprocess — the device
     numeric regime where coded uploads auto-enable."""
 
     def _run(self, tmp_path, tag, extra_env):
@@ -140,7 +140,7 @@ class TestEndToEnd:
         env.update(extra_env)
         # --platform cpu pins the backend (f32: no --x64), the regime
         # where coded uploads auto-enable
-        cmd = [sys.executable, "-m", "ngsdist_tpu",
+        cmd = [sys.executable, "-m", "ngsdist_jax",
                "--geno", os.path.join(DATA, "gt.geno.gz"),
                "--n_ind", "20", "--n_sites", "1200",
                "--labels", os.path.join(DATA, "labels.txt"),
@@ -182,13 +182,13 @@ class TestMesh:
 
     @pytest.fixture()
     def mesh8(self):
-        from ngsdist_tpu.parallel import mesh as pm
+        from ngsdist_jax.parallel import mesh as pm
 
         return pm.make_mesh(n_devices=8)
 
     def _mats(self, pars, P, mesh):
-        from ngsdist_tpu.core import bootstrap as bt
-        from ngsdist_tpu.core import distance as dist
+        from ngsdist_jax.core import bootstrap as bt
+        from ngsdist_jax.core import distance as dist
 
         n_trunc, maps = bt.site_maps(
             pars.seed, pars.n_boot_rep, pars.n_sites, pars.boot_block_size)
@@ -197,8 +197,8 @@ class TestMesh:
     @pytest.mark.parametrize("pairwise_del", [False, True])
     def test_sharded_resident_and_streamed(self, mesh8, monkeypatch,
                                            pairwise_del):
-        from ngsdist_tpu.config import Params
-        from ngsdist_tpu.parallel.multihost import SiteStream
+        from ngsdist_jax.config import Params
+        from ngsdist_jax.parallel.multihost import SiteStream
 
         P, _, _, _ = _coded_tensor(141, 5, seed=7)
         codes, lut = derive_codes(P)
@@ -227,8 +227,8 @@ class TestMesh:
             np.testing.assert_allclose(b, a, rtol=0, atol=1e-11)
 
     def test_disabled_decays_to_staged(self, mesh8, monkeypatch):
-        from ngsdist_tpu.config import Params
-        from ngsdist_tpu.parallel.multihost import SiteStream
+        from ngsdist_jax.config import Params
+        from ngsdist_jax.parallel.multihost import SiteStream
 
         P, _, _, _ = _coded_tensor(60, 4, seed=8)
         codes, lut = derive_codes(P)
@@ -242,7 +242,7 @@ class TestMesh:
             np.asarray(st.global_array())[:60], P)
 
     def test_pad_lut(self):
-        from ngsdist_tpu.utils.hostmem import coded_pad_lut
+        from ngsdist_jax.utils.hostmem import coded_pad_lut
 
         lut = np.zeros((4, 3))
         lut[0, 0] = lut[1, 1] = lut[2, 2] = 1.0
@@ -264,7 +264,7 @@ class TestLazyCoded:
 
     @pytest.fixture()
     def mesh8(self):
-        from ngsdist_tpu.parallel import mesh as pm
+        from ngsdist_jax.parallel import mesh as pm
 
         return pm.make_mesh(n_devices=8)
 
@@ -286,7 +286,7 @@ class TestLazyCoded:
         return path
 
     def _pars(self, path, S, N):
-        from ngsdist_tpu.config import Params
+        from ngsdist_jax.config import Params
 
         pars = Params(in_geno=path, in_bin=True, in_probs=True, n_ind=N,
                       n_sites=S, out="y", seed=3, indep_geno=True,
@@ -295,7 +295,7 @@ class TestLazyCoded:
         return pars
 
     def _mats(self, pars, stream, mesh):
-        from ngsdist_tpu.core import bootstrap as bt
+        from ngsdist_jax.core import bootstrap as bt
 
         n_trunc, maps = bt.site_maps(
             pars.seed, pars.n_boot_rep, pars.n_sites, pars.boot_block_size)
@@ -305,7 +305,7 @@ class TestLazyCoded:
     @pytest.mark.parametrize("gz", [False, True])
     def test_lazy_coded_matches_staged_lazy(self, mesh8, tmp_path,
                                             monkeypatch, gz):
-        from ngsdist_tpu.parallel.multihost import SiteStream
+        from ngsdist_jax.parallel.multihost import SiteStream
 
         S, N = 120, 5
         path = self._gp(tmp_path, S, N, gz=gz)
@@ -331,7 +331,7 @@ class TestLazyCoded:
             np.testing.assert_array_equal(b, a)
 
     def test_gates(self, monkeypatch, tmp_path):
-        from ngsdist_tpu.parallel.multihost import SiteStream
+        from ngsdist_jax.parallel.multihost import SiteStream
 
         S, N = 16, 3
         path = self._gp(tmp_path, S, N)
@@ -364,9 +364,9 @@ class TestLazyCoded:
         --call_geno binary runs through lazy CODED rounds (single-device
         runs take the deferred CodedBinInput handle instead) and
         reproduces the full-budget file."""
-        from ngsdist_tpu import runner
+        from ngsdist_jax import runner
 
-        from ngsdist_tpu.parallel.multihost import SiteStream
+        from ngsdist_jax.parallel.multihost import SiteStream
 
         S, N = 90, 5
         path = self._gp(tmp_path, S, N, seed=4)
@@ -404,7 +404,7 @@ class TestLazyCoded:
         fields (NaN lut row)."""
         import gzip
 
-        from ngsdist_tpu.parallel.multihost import SiteStream
+        from ngsdist_jax.parallel.multihost import SiteStream
 
         S, N = 96, 4
         rng = np.random.default_rng(33)
@@ -427,7 +427,7 @@ class TestLazyCoded:
         with gzip.open(path, "wt") as fh:
             fh.write("\n".join(lines) + "\n")
 
-        from ngsdist_tpu.config import Params
+        from ngsdist_jax.config import Params
 
         pars = Params(in_geno=path, in_bin=False, in_probs=True, n_ind=N,
                       n_sites=S, out="y", seed=3, indep_geno=True,
@@ -459,7 +459,7 @@ class TestLazyCoded:
         """Coded shards compose with the 2-D (sites, pairs) mesh: the
         code plane shards over 'sites' and replicates over 'pairs'
         (resident AND lazy rounds), matching the 1-D mesh bit-for-bit."""
-        from ngsdist_tpu.parallel import mesh as pm
+        from ngsdist_jax.parallel import mesh as pm
 
         S, N = 120, 5
         path = self._gp(tmp_path, S, N, seed=6)
@@ -468,7 +468,7 @@ class TestLazyCoded:
         monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", "100000000")
         monkeypatch.delenv("NGSDIST_HOST_BUDGET", raising=False)
 
-        from ngsdist_tpu.parallel.multihost import SiteStream
+        from ngsdist_jax.parallel.multihost import SiteStream
 
         mesh1 = pm.make_mesh(n_devices=8)
         mesh2 = pm.make_mesh(n_devices=8, pairs=4)

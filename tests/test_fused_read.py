@@ -22,10 +22,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from ngsdist_tpu.config import NgsDistError, Params
-from ngsdist_tpu.core.preprocess import preprocess
-from ngsdist_tpu.io import readers
-from ngsdist_tpu.utils.hostmem import pack23
+from ngsdist_jax.config import NgsDistError, Params
+from ngsdist_jax.core.preprocess import preprocess
+from ngsdist_jax.io import readers
+from ngsdist_jax.utils.hostmem import pack23
 
 
 def _write_gp(tmp_path, S, N, seed=3, name="gp.bin"):
@@ -111,8 +111,8 @@ def test_gzip_falls_back_to_none(tmp_path):
 @pytest.fixture
 def f32_engine(monkeypatch):
     """Force the f32 2-component engine path under the x64 test config
-    (the fused fast path is f32-only; production TPU runs are x64-off)."""
-    from ngsdist_tpu.core import distance as dist
+    (the fused fast path is f32-only; production device runs are x64-off)."""
+    from ngsdist_jax.core import distance as dist
 
     monkeypatch.setenv("NGSDIST_UPLOAD23", "1")
     monkeypatch.setattr(dist, "default_dtype", lambda: jnp.float32)
@@ -120,8 +120,8 @@ def f32_engine(monkeypatch):
 
 
 def _run_engine(pars, P):
-    from ngsdist_tpu.core import bootstrap as bt
-    from ngsdist_tpu.core import distance as dist
+    from ngsdist_jax.core import bootstrap as bt
+    from ngsdist_jax.core import distance as dist
 
     n_trunc, maps = bt.site_maps(pars.seed, pars.n_boot_rep, pars.n_sites,
                                  pars.boot_block_size)
@@ -156,7 +156,7 @@ def test_engine_matches_staged(tmp_path, monkeypatch, f32_engine, budget):
 def test_runner_gating(tmp_path, monkeypatch, f32_engine):
     """_fused_packed_wanted: on for raw-binary f32 jax runs, off for
     text/gz/stdin, exact engine, calling, extended models, v>=8, env."""
-    from ngsdist_tpu import runner
+    from ngsdist_jax import runner
 
     S, N = 16, 3
     path, _ = _write_gp(str(tmp_path), S, N, seed=2)
@@ -179,7 +179,7 @@ def test_runner_gating(tmp_path, monkeypatch, f32_engine):
 
 def test_runner_end_to_end_fused(tmp_path, monkeypatch, f32_engine):
     """Full runner.run through the fused path == staged output file."""
-    from ngsdist_tpu import runner
+    from ngsdist_jax import runner
 
     S, N = 200, 6
     path, _ = _write_gp(str(tmp_path), S, N, seed=7)
@@ -219,7 +219,7 @@ def _write_gp_calls(tmp_path, S, N, seed=9, miss=True, name="gpm.bin"):
 
 
 def _staged_codes(path, in_logscale, N, S):
-    from ngsdist_tpu.utils.hostmem import derive_codes
+    from ngsdist_jax.utils.hostmem import derive_codes
 
     P = preprocess(readers.read_geno(path, True, True, in_logscale, N, S),
                    True, 0.0, 0.0)
@@ -232,7 +232,7 @@ def _staged_codes(path, in_logscale, N, S):
 def test_codes_bit_equal_staged(tmp_path, miss):
     """codes + lut + lazy-P reconstruction all bit-equal to the staged
     read -> call_geno -> exp -> derive_codes pipeline."""
-    from ngsdist_tpu.utils.hostmem import CodedProbs, coded_call_lut
+    from ngsdist_jax.utils.hostmem import CodedProbs, coded_call_lut
 
     S, N = 257, 13
     path, g = _write_gp_calls(str(tmp_path), S, N, miss=miss)
@@ -296,7 +296,7 @@ def test_fused_coded_gating(tmp_path, monkeypatch, f32_engine):
     f32 jax runs with DEFAULT-threshold call_geno and coded uploads on;
     eager resident plane for mesh runs (plane under the host budget)
     and chunked bootstrap; False otherwise."""
-    from ngsdist_tpu import runner
+    from ngsdist_jax import runner
 
     S, N = 16, 3
     path, _ = _write_gp_calls(str(tmp_path), S, N, seed=2)
@@ -342,7 +342,7 @@ def test_fused_coded_gating(tmp_path, monkeypatch, f32_engine):
 def test_runner_end_to_end_coded(tmp_path, monkeypatch, f32_engine):
     """Full runner.run through the fused codes path == the staged
     call_geno pipeline's output file, resident and chunked."""
-    from ngsdist_tpu import runner
+    from ngsdist_jax import runner
 
     S, N = 220, 6
     path, _ = _write_gp_calls(str(tmp_path), S, N, seed=7)
@@ -481,7 +481,7 @@ def test_engine_matches_staged_u16(tmp_path, monkeypatch, f32_engine,
 def test_runner_end_to_end_u16(tmp_path, monkeypatch, f32_engine):
     """runner.run: fused u16 == staged u16 byte-for-byte; u16 vs the
     f32 lane stays within the documented quantization class."""
-    from ngsdist_tpu import runner
+    from ngsdist_jax import runner
 
     S, N = 200, 6
     path, _ = _write_gp_u16(str(tmp_path), S, N, seed=8)

@@ -14,8 +14,8 @@ import os
 import numpy as np
 import pytest
 
-from ngsdist_tpu import runner
-from ngsdist_tpu.config import Params
+from ngsdist_jax import runner
+from ngsdist_jax.config import Params
 
 
 def _write_inputs(tmp_path, rng, S, N, kind):
@@ -92,7 +92,7 @@ def test_random_config_sharded_streamed_agree(tmp_path, trial, monkeypatch):
     the bit-exact oracle."""
     import jax
 
-    from ngsdist_tpu.parallel import mesh as pm
+    from ngsdist_jax.parallel import mesh as pm
 
     rng = np.random.default_rng(5000 + trial)
     S = int(rng.integers(30, 120))
@@ -154,7 +154,7 @@ def test_random_config_upload23_agree(tmp_path, trial, monkeypatch):
     therefore valid-site counts are invariant)."""
     import jax
 
-    from ngsdist_tpu.parallel import mesh as pm
+    from ngsdist_jax.parallel import mesh as pm
 
     rng = np.random.default_rng(7000 + trial)
     S = int(rng.integers(30, 120))
@@ -220,7 +220,7 @@ def test_random_routing_gates_agree(tmp_path, trial, monkeypatch):
     threshold."""
     import jax
 
-    from ngsdist_tpu.parallel import mesh as pm
+    from ngsdist_jax.parallel import mesh as pm
 
     rng = np.random.default_rng(9000 + trial)
     S = int(rng.integers(40, 200))
@@ -307,7 +307,7 @@ def test_streamed_partials_ragged_chunks(tmp_path, monkeypatch,
     geometries."""
     import jax
 
-    from ngsdist_tpu.parallel import mesh as pm
+    from ngsdist_jax.parallel import mesh as pm
 
     rng = np.random.default_rng(77)
     S, N = 54, 6

@@ -9,7 +9,7 @@ import os
 
 import pytest
 
-from ngsdist_tpu import cli, runner
+from ngsdist_jax import cli, runner
 
 from conftest import DATA_DIR, FIXTURES, GOLDEN_DIR
 

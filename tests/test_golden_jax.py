@@ -15,7 +15,7 @@ import os
 
 import pytest
 
-from ngsdist_tpu import cli
+from ngsdist_jax import cli
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 MANIFEST = json.load(open(os.path.join(FIXTURES, "manifest.json")))

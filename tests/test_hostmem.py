@@ -6,8 +6,8 @@ change any arithmetic."""
 
 import numpy as np
 
-from ngsdist_tpu.utils import native as nat
-from ngsdist_tpu.utils.hostmem import parallel_astype, parallel_cast_pad
+from ngsdist_jax.utils import native as nat
+from ngsdist_jax.utils.hostmem import parallel_astype, parallel_cast_pad
 
 
 def test_parallel_astype_matches_numpy():

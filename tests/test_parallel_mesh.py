@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ngsdist_tpu.config import Params, default_score_matrix
-from ngsdist_tpu.core import bootstrap as bt
-from ngsdist_tpu.core import distance as dist
-from ngsdist_tpu.parallel import mesh as pm
+from ngsdist_jax.config import Params, default_score_matrix
+from ngsdist_jax.core import bootstrap as bt
+from ngsdist_jax.core import distance as dist
+from ngsdist_jax.parallel import mesh as pm
 
 
 def _rand_probs(rng, S, N, missing_frac=0.15):
@@ -117,7 +117,7 @@ def test_sharded_streaming_matches_resident(mesh8, monkeypatch, indep, pairwise_
     reproduce the resident sharded pipeline, incl. bootstrap replicates
     (VERDICT round-1 item 3: per-device HBM no longer bounds genome
     length)."""
-    from ngsdist_tpu.parallel.multihost import SiteStream
+    from ngsdist_jax.parallel.multihost import SiteStream
 
     rng = np.random.default_rng(8)
     S, N = 141, 5
@@ -220,49 +220,13 @@ def test_single_device_mesh_ok():
     np.testing.assert_allclose(np.asarray(cnt), np.asarray(cnt1), atol=0)
 
 
-def test_sharded_pallas_gate_is_per_call(mesh8, monkeypatch):
-    """The kernel dispatch must be decided per call (static jit arg), so
-    toggling NGSDIST_PALLAS between calls is honoured — not frozen into
-    a cached trace (the gate lives outside jit)."""
-    import ngsdist_tpu.parallel.mesh as m
-
-    seen = []
-    orig = m._indep_sharded
-
-    def spy(P_pad, mask, w, score, pairwise_del, mesh, use_pallas=False,
-            **kw):
-        seen.append(use_pallas)
-        return orig(P_pad, mask, w, score, pairwise_del, mesh,
-                    use_pallas=False)  # CPU: always run the XLA path
-
-    monkeypatch.setattr(m, "_indep_sharded", spy)
-    rng = np.random.default_rng(6)
-    P = _rand_probs(rng, 16, 3)
-    monkeypatch.setenv("NGSDIST_PALLAS", "1")
-    pm.sharded_suffstats(P, default_score_matrix(), mesh8, indep=True,
-                         pairwise_del=False)
-    monkeypatch.setenv("NGSDIST_PALLAS", "0")
-    pm.sharded_suffstats(P, default_score_matrix(), mesh8, indep=True,
-                         pairwise_del=False)
-    assert seen == [True, False]
-
-
-def test_interpret_plus_vma_rejected():
-    from ngsdist_tpu.ops.pallas_indep import indep_raw_cnt_pallas
-
-    P = jnp.asarray(np.full((8, 4, 3), 1 / 3))
-    with pytest.raises(ValueError, match="interpret mode"):
-        indep_raw_cnt_pallas(P, default_score_matrix(), True,
-                             interpret=True, vma=("sites",))
-
-
 def test_pair_block_tables_cover_each_devices_pairs():
     """Every device's contiguous pair slice must be covered by its block
     sublist; padding entries are the never-read lower-tri block (1, 0).
     Pair-list padding duplicates the LAST real pair, so it adds no
     extra block to the last device's table."""
-    from ngsdist_tpu.core.distance import _pair_indices
-    from ngsdist_tpu.parallel.mesh import (_pair_block_tables,
+    from ngsdist_jax.core.distance import _pair_indices
+    from ngsdist_jax.parallel.mesh import (_pair_block_tables,
                                            _pair_block_tables_cached)
 
     for N, p, B in [(300, 2, 128), (515, 4, 128), (40, 2, 128), (1030, 8, 128)]:
@@ -291,10 +255,10 @@ def test_streamed_indep_bootstrap_single_pass(tmp_path, monkeypatch):
     """Streamed indep bootstrap: ONE data pass builds per-round block
     partials; every replicate is a resummation (no per-replicate data
     passes), and results match the resident engine."""
-    from ngsdist_tpu.config import Params
-    from ngsdist_tpu.core import bootstrap as bt
-    from ngsdist_tpu.core import distance as dist
-    from ngsdist_tpu.parallel import mesh as pm
+    from ngsdist_jax.config import Params
+    from ngsdist_jax.core import bootstrap as bt
+    from ngsdist_jax.core import distance as dist
+    from ngsdist_jax.parallel import mesh as pm
 
     mesh = pm.make_mesh(n_devices=4)
     rng = np.random.default_rng(60)
@@ -325,48 +289,67 @@ def test_streamed_indep_bootstrap_single_pass(tmp_path, monkeypatch):
 
     # one partials call per round plus at most two tail rounds — NOT
     # (R+1) passes over all rounds
-    from ngsdist_tpu.parallel.multihost import SiteStream
+    from ngsdist_jax.parallel.multihost import SiteStream
 
     st = SiteStream.from_array(P, pars, mesh, np.float64)
     assert not st.resident
     assert calls["n"] <= st.n_rounds + 2, (calls["n"], st.n_rounds)
 
 
-def test_em_pallas_branch_wiring_p2(monkeypatch):
-    """Validates the 2-D mesh EM *kernel branch* wiring on CPU — table
-    sharding over the pairs axis, per-device block sublists, pair-slice
-    extraction, psum and out_specs — by swapping the Mosaic kernel for a
-    scan-based fake that honors the `blocks` sublist (zeroing pairs
-    outside it, so wrong tables would corrupt the comparison).  Only
-    Mosaic compilation itself remains TPU-only."""
-    import jax.numpy as jnp
+def _kernel_interpret(monkeypatch, block=16):
+    """Route the engine's EM path through the kernel in interpret mode
+    (the CPU has no GPU to compile it for)."""
+    import functools
 
-    from ngsdist_tpu.config import default_score_matrix
-    from ngsdist_tpu.core import distance as dist
-    from ngsdist_tpu.ops import pallas_em as pe
-    from ngsdist_tpu.parallel import mesh as pm
+    from ngsdist_jax.ops import em_kernel as ek
 
-    from ngsdist_tpu.core.em import em_pair_site_contribs
+    monkeypatch.setattr(dist, "use_em_kernel", lambda dtype: True)
+    monkeypatch.setattr(ek, "em_raw_cnt", functools.partial(
+        ek.em_raw_cnt, interpret=True, block=block))
 
-    def fake_kernel(P, score9, pairwise_del, site_weights=None, vma=None,
-                    blocks=None, **kw):
-        # direct (scan-free) masked-EM reduction: vma-safe inside
-        # shard_map, honoring weights like the real kernel
-        N = P.shape[1]
-        I, J = dist._pair_indices(N)
-        contrib = em_pair_site_contribs(
-            P[:, I, :], P[:, J, :], jnp.asarray(score9).reshape(-1))
-        valid = (~dist.missing_mask(P)).astype(P.dtype)
-        m = valid[:, I] * valid[:, J] if pairwise_del else jnp.ones_like(contrib)
-        w = (site_weights[:, None] if site_weights is not None
-             else jnp.ones((P.shape[0], 1), P.dtype))
-        raw_v = jnp.sum(contrib * m * w, axis=0)
-        cnt_v = jnp.sum(m * w, axis=0)
-        raw = jnp.zeros((N, N), P.dtype).at[I, J].set(raw_v)
-        cnt = jnp.zeros((N, N), P.dtype).at[I, J].set(cnt_v)
+
+@pytest.mark.parametrize("pairwise_del", [False, True])
+def test_em_kernel_sites_mesh(monkeypatch, pairwise_del):
+    """The EM kernel (interpret mode) under shard_map on the 1-D sites
+    mesh, with bootstrap weights, reproduces the XLA scan."""
+    rng = np.random.default_rng(62)
+    S, N = 29, 21
+    P = _rand_probs(rng, S, N)
+    w = rng.integers(0, 3, size=S).astype(np.float64)
+    score = default_score_matrix()
+    mesh = pm.make_mesh(n_devices=4)
+    ref = pm.sharded_suffstats(P, score, mesh, indep=False,
+                               pairwise_del=pairwise_del, site_weights=w,
+                               dtype=jnp.float64)
+    _kernel_interpret(monkeypatch)
+    got = pm.sharded_suffstats(P, score, mesh, indep=False,
+                               pairwise_del=pairwise_del, site_weights=w,
+                               dtype=jnp.float64)
+    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
+                               rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(ref[1]),
+                               rtol=0, atol=1e-12)
+
+
+def test_em_kernel_branch_wiring_p2(monkeypatch):
+    """The 2-D mesh EM kernel branch — table sharding over the pairs
+    axis, per-device block sublists, pair-slice extraction, psum and
+    out_specs.  The interpreter cannot index with tables that vary over
+    the pairs axis, so the kernel runs (interpret mode) over the full
+    block enumeration and then keeps only the blocks of this device's
+    sublist, zeroing the rest: wrong tables corrupt the comparison."""
+    from ngsdist_jax.ops import em_kernel as ek
+
+    B = 16
+    kernel = ek.em_raw_cnt
+
+    def sublist_kernel(P, score9, pairwise_del, site_weights=None,
+                       vma=None, blocks=None, **kw):
+        raw, cnt = kernel(P, score9, pairwise_del, site_weights=site_weights,
+                          vma=vma, block=B, interpret=True)
         if blocks is not None:
+            N = P.shape[1]
             ib, jb = blocks
-            B = pe.DEFAULT_BLOCK
             bi = jnp.arange(N)[:, None] // B
             bj = jnp.arange(N)[None, :] // B
             keep = jnp.zeros((N, N), bool)
@@ -377,7 +360,7 @@ def test_em_pallas_branch_wiring_p2(monkeypatch):
         return raw, cnt
 
     rng = np.random.default_rng(61)
-    S, N = 32, 200  # N > 128: two block rows at the kernel's block size
+    S, N = 24, 40  # three block rows at B=16
     P = rng.dirichlet(np.ones(3), size=(S, N))
     score = default_score_matrix()
     mesh2 = pm.make_mesh(n_devices=4, pairs=2)
@@ -385,10 +368,13 @@ def test_em_pallas_branch_wiring_p2(monkeypatch):
     ref_raw, ref_cnt, _, _ = pm.sharded_suffstats(
         P, score, mesh2, indep=False, pairwise_del=True, dtype=jnp.float64)
 
-    monkeypatch.setattr(pe, "em_raw_cnt_pallas", fake_kernel)
-    monkeypatch.setattr(dist, "_pallas_mode", lambda: "on")
+    monkeypatch.setattr(ek, "em_raw_cnt", sublist_kernel)
+    monkeypatch.setattr(ek, "choose_block", lambda n: B)
+    monkeypatch.setattr(dist, "use_em_kernel", lambda dtype: True)
+    pm._pair_block_tables_cached.cache_clear()
     got_raw, got_cnt, _, _ = pm.sharded_suffstats(
         P, score, mesh2, indep=False, pairwise_del=True, dtype=jnp.float64)
+    pm._pair_block_tables_cached.cache_clear()
 
     np.testing.assert_allclose(np.asarray(got_raw), np.asarray(ref_raw),
                                rtol=1e-9, atol=1e-12)
@@ -396,99 +382,39 @@ def test_em_pallas_branch_wiring_p2(monkeypatch):
                                rtol=1e-9, atol=1e-12)
 
 
-def test_2d_pairs_mesh_pallas_panel_wiring(monkeypatch):
-    """The p>1 kernel route (balanced runtime panel sublists, psum over
-    (sites, pairs), triu symmetrization, (1,0) padding drop) — Mosaic
-    cannot compile on CPU, so the kernel itself is faked with an
-    einsum that reproduces the kernel's OUTPUT CONTRACT (only the
-    listed panels valid, garbage elsewhere in the lower triangle); the
-    shard_map wiring around it must then reproduce the einsum row-
-    slice path on the same mesh."""
-    from ngsdist_tpu.core.distance import missing_mask
-    from ngsdist_tpu.ops import pallas_indep as pk
+def test_em_kernel_choice_follows_backend_and_dtype(monkeypatch):
+    """GPU + float32 -> kernel; CPU or float64 -> the XLA scan.  No
+    environment variable takes part."""
+    assert not dist.use_em_kernel(jnp.float32)  # this CPU backend
+    assert not dist.use_em_kernel(jnp.float64)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert dist.use_em_kernel(jnp.float32)
+    assert dist.use_em_kernel(np.float32)
+    assert not dist.use_em_kernel(jnp.float64)
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    assert not dist.use_em_kernel(jnp.float32)
 
-    mesh2 = pm.make_mesh(n_devices=8, pairs=2)
-    rng = np.random.default_rng(77)
-    S, N = 53, 1200  # ns=3 -> 6 panel pairs, split 3/3 over p=2
-    P = _rand_probs(rng, S, N)
+
+def test_sharded_em_kernel_choice_per_call(mesh8, monkeypatch):
+    """The kernel choice is made per call outside jit and passed as a
+    static argument, so it is never frozen into a cached trace."""
+    seen = []
+    orig = pm._em_sharded
+
+    def spy(*a, use_kernel=False, **kw):
+        seen.append(use_kernel)
+        return orig(*a, use_kernel=False, **kw)  # CPU: run the scan
+
+    monkeypatch.setattr(pm, "_em_sharded", spy)
+    rng = np.random.default_rng(6)
+    P = _rand_probs(rng, 16, 3)
     score = default_score_matrix()
-
-    tabs = pm._panel_tables_cached(N, 2)
-    assert tabs is not None
-    ns, G, N_pad = pk._super_shape(N, pk.DEFAULT_BLOCK)
-    assert ns == 3
-
-    def fake_kernel(Pl, score_in, pairwise_del, site_weights=None,
-                    vma=None, panels=None, **kw):
-        assert panels is not None and pairwise_del
-        dtype = Pl.dtype
-        v = (~missing_mask(Pl)).astype(dtype)
-        vi = v * site_weights[:, None]
-        Q = Pl * v[..., None]
-        Y = jnp.einsum("sjh,gh->sjg", Q, jnp.asarray(score_in, dtype),
-                       precision=jax.lax.Precision.HIGHEST)
-        A = Pl * vi[..., None]
-        raw = jnp.einsum("sig,sjg->ij", A, Y, preferred_element_type=dtype,
-                         precision=jax.lax.Precision.HIGHEST)
-        cnt = jnp.einsum("si,sj->ij", vi, v, preferred_element_type=dtype,
-                         precision=jax.lax.Precision.HIGHEST)
-        sb = G * pk.DEFAULT_BLOCK
-        mask = jnp.zeros((N_pad, N_pad), dtype)
-        one = jnp.full((sb, sb), jnp.nan, dtype)  # poison: must be cut
-        IS, JS = panels
-        for k in range(IS.shape[0]):
-            mask = jax.lax.dynamic_update_slice(
-                mask, one, (IS[k] * sb, JS[k] * sb))
-        # listed panels carry the data; everything else (incl. the
-        # (1,0) padding panel when listed twice) is poisoned with NaN
-        # where the mask is NaN *below* the diagonal — the caller's
-        # triu must drop all of it
-        sel = jnp.where(jnp.isnan(mask[:N, :N]), 1.0, 0.0)
-        tri_l = jnp.tril(jnp.ones((N, N), dtype), -1)
-        poison = jnp.where(sel * tri_l > 0, jnp.nan, 0.0)
-        return raw * sel + poison, cnt * sel + poison
-
-    monkeypatch.setattr(pk, "indep_raw_cnt_pallas", fake_kernel)
-    monkeypatch.setenv("NGSDIST_PALLAS", "1")
-    raw_k, cnt_k, _, _ = pm.sharded_suffstats(
-        P, score, mesh2, indep=True, pairwise_del=True)
-    monkeypatch.setenv("NGSDIST_PALLAS", "0")
-    raw_e, cnt_e, _, _ = pm.sharded_suffstats(
-        P, score, mesh2, indep=True, pairwise_del=True)
-    iu = np.triu_indices(N, k=1)
-    assert not np.isnan(np.asarray(raw_k)).any()
-    np.testing.assert_allclose(np.asarray(raw_k)[iu], np.asarray(raw_e)[iu],
-                               rtol=1e-12, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(cnt_k)[iu], np.asarray(cnt_e)[iu],
-                               rtol=1e-12, atol=1e-12)
-
-
-def test_panel_tables_balanced_and_padded():
-    """Balanced greedy split: every upper-tri panel pair appears exactly
-    once across devices; padding entries are the strictly-lower (1,0);
-    per-device MXU cost is balanced to within one panel pair."""
-    from ngsdist_tpu.ops import pallas_indep as pk
-
-    for N, p in ((1200, 2), (2048, 4), (4096, 8)):
-        tabs = pm._panel_tables_cached(N, p)
-        assert tabs is not None
-        IS, JS = np.asarray(tabs[0]), np.asarray(tabs[1])
-        ns, G, _ = pk._super_shape(N, pk.DEFAULT_BLOCK)
-        want = {(i, j) for i in range(ns) for j in range(i, ns)}
-        got = []
-        costs = []
-        cost = {True: G * (G + 1) / 2, False: float(G * G)}
-        for d in range(p):
-            c = 0.0
-            for i, j in zip(IS[d], JS[d]):
-                if (i, j) == (1, 0):
-                    continue  # padding
-                got.append((int(i), int(j)))
-                c += cost[i == j]
-            costs.append(c)
-        assert sorted(got) == sorted(want)          # exact cover
-        assert max(costs) - min(costs) <= cost[False]  # balanced
-
-    # degenerate splits are refused (fall back to einsum row slices)
-    assert pm._panel_tables_cached(300, 2) is None      # single superblock
-    assert pm._panel_tables_cached(1200, 16) is None    # p > panel pairs
+    monkeypatch.setattr(dist, "use_em_kernel", lambda dtype: True)
+    pm.sharded_suffstats(P, score, mesh8, indep=False, pairwise_del=True)
+    monkeypatch.setattr(dist, "use_em_kernel", lambda dtype: False)
+    pm.sharded_suffstats(P, score, mesh8, indep=False, pairwise_del=True)
+    # block partials always take the scan
+    monkeypatch.setattr(dist, "use_em_kernel", lambda dtype: True)
+    pm.sharded_suffstats(P, score, mesh8, indep=False, pairwise_del=True,
+                         n_blocks=2, block_size=8)
+    assert seen == [True, False, False]

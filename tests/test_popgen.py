@@ -11,7 +11,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ngsdist_tpu.popgen import (
+from ngsdist_jax.popgen import (
     backward,
     calc_emission,
     calc_hwe,
@@ -305,7 +305,7 @@ def _joint_oracle(h, gp, gc, F):
 
 @pytest.mark.parametrize("F", [0, 1])
 def test_calc_emission_ld_matches_oracle(F):
-    from ngsdist_tpu.popgen import calc_emission_ld
+    from ngsdist_jax.popgen import calc_emission_ld
 
     rng = np.random.default_rng(7)
     h = rng.dirichlet(np.ones(4))
@@ -392,7 +392,7 @@ class TestLbfgsbOracle:
         import numpy as np
         from scipy.optimize import minimize
 
-        from ngsdist_tpu.popgen.optim import lbfgsb
+        from ngsdist_jax.popgen.optim import lbfgsb
 
         for k, (f, x0, lo, hi) in enumerate(self._problems()):
             def fj(x):
@@ -423,7 +423,7 @@ class TestLbfgsbOracle:
         import numpy as np
         from scipy.optimize import minimize
 
-        from ngsdist_tpu.popgen.optim import lbfgsb
+        from ngsdist_jax.popgen.optim import lbfgsb
 
         for k, (f, x0, lo, hi) in enumerate(self._problems()):
             def fj(x):
@@ -451,7 +451,7 @@ class TestLbfgsbOracle:
         an objective UNDEFINED outside the box still optimizes."""
         import numpy as np
 
-        from ngsdist_tpu.popgen.optim import lbfgsb
+        from ngsdist_jax.popgen.optim import lbfgsb
 
         def f(x):
             # NaN outside [0, 1]^2 — any probe crossing a bound poisons
@@ -472,7 +472,7 @@ class TestLbfgsbOracle:
         (impossible with the reference's thread-per-problem Fortran)."""
         import numpy as np
 
-        from ngsdist_tpu.popgen.optim import lbfgsb
+        from ngsdist_jax.popgen.optim import lbfgsb
 
         rng = np.random.default_rng(5)
         centers = jnp.asarray(rng.normal(size=(16, 4)))

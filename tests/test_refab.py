@@ -28,7 +28,7 @@ import sys
 import numpy as np
 import pytest
 
-from ngsdist_tpu import cli
+from ngsdist_jax import cli
 
 from conftest import DATA_DIR
 
@@ -128,7 +128,7 @@ def run_ref(args, cwd=DATA_DIR):
 
 
 def run_mine(args, capsys=None):
-    """Drive our CLI in-process (same entry as python -m ngsdist_tpu;
+    """Drive our CLI in-process (same entry as python -m ngsdist_jax;
     in-process so 180 engine runs reuse one interpreter + jit cache)."""
     try:
         rc = cli.main(list(args))

@@ -11,10 +11,10 @@ import os
 import numpy as np
 import pytest
 
-from ngsdist_tpu.config import Params
-from ngsdist_tpu.core import bootstrap as bt
-from ngsdist_tpu.core import distance as dist
-from ngsdist_tpu.utils import checkpoint as ckpt
+from ngsdist_jax.config import Params
+from ngsdist_jax.core import bootstrap as bt
+from ngsdist_jax.core import distance as dist
+from ngsdist_jax.utils import checkpoint as ckpt
 
 
 def _rand_probs(rng, S, N):
@@ -112,7 +112,7 @@ def test_round_ckpt_single_file_atomic(tmp_path):
 
 
 def _pos_alleles(S, rng):
-    from ngsdist_tpu.core.submodels import encode_alleles
+    from ngsdist_jax.core.submodels import encode_alleles
 
     bases = np.array(["A", "C", "G", "T"])
     rows = []
@@ -175,7 +175,7 @@ def test_extended_single_device_round_resume(tmp_path, monkeypatch):
 def test_extended_mesh_round_resume(tmp_path, monkeypatch):
     """The sharded extended path (model 6, needs pair-pi): kill in round
     3, resume from the 7-accumulator checkpoint, identical output."""
-    from ngsdist_tpu.parallel import mesh as pm
+    from ngsdist_jax.parallel import mesh as pm
 
     mesh = pm.make_mesh(n_devices=4)
     rng = np.random.default_rng(44)
@@ -221,7 +221,7 @@ def test_sharded_streaming_round_resume(tmp_path, monkeypatch):
     bootstrap replicate (per-rep keyed checkpoints)."""
     import jax
 
-    from ngsdist_tpu.parallel import mesh as pm
+    from ngsdist_jax.parallel import mesh as pm
 
     mesh = pm.make_mesh(n_devices=4)
     rng = np.random.default_rng(42)
@@ -264,8 +264,8 @@ def test_lazy_stream_round_resume(tmp_path, monkeypatch):
     """LAZY disk-streamed rounds + round checkpoints: kill mid-replicate,
     resume — the skipped rounds are neither recomputed NOR re-read from
     disk, and the output is byte-identical."""
-    from ngsdist_tpu.parallel import mesh as pm
-    from ngsdist_tpu.parallel import multihost as mh
+    from ngsdist_jax.parallel import mesh as pm
+    from ngsdist_jax.parallel import multihost as mh
 
     mesh = pm.make_mesh(n_devices=4)
     rng = np.random.default_rng(45)
@@ -326,7 +326,7 @@ def test_lazy_stream_round_resume(tmp_path, monkeypatch):
 def test_broadcast_f64_exact_under_x32():
     """Multi-host round-ckpt resume broadcasts host-f64 accumulators
     (sums of f32 rounds, generally not f32-representable).  Under
-    x64-off — every real TPU run — a plain broadcast_one_to_all
+    x64-off — every f32 device run — a plain broadcast_one_to_all
     device_puts and silently truncates them to f32; the byte-view
     broadcast must stay bit-exact."""
     import jax

@@ -25,8 +25,8 @@ jax.config.update("jax_enable_x64",
 
 pid, nproc, port, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 sys.path.insert(0, {repo!r})
-from ngsdist_tpu.config import Params
-from ngsdist_tpu.parallel.multihost import run_distributed
+from ngsdist_jax.config import Params
+from ngsdist_jax.parallel.multihost import run_distributed
 
 # test hook: hard-exit (no cleanup, like SIGKILL) at the Nth sharded
 # suffstats call — deterministic mid-replicate crash for round-ckpt
@@ -34,7 +34,7 @@ from ngsdist_tpu.parallel.multihost import run_distributed
 # same call index together)
 _crash_after = int(os.environ.get("NGSDIST_TEST_CRASH_AFTER", "0"))
 if _crash_after:
-    from ngsdist_tpu.parallel import mesh as _pm
+    from ngsdist_jax.parallel import mesh as _pm
 
     _calls = {{"n": 0}}
     _orig_ss = _pm.sharded_suffstats
@@ -144,8 +144,8 @@ def test_run_distributed_two_processes(tmp_path, pairwise_del, streamed):
         assert list((tmp_path / "spill").iterdir()) == []
 
     # single-process reference run (jax engine, same config)
-    from ngsdist_tpu import runner
-    from ngsdist_tpu.config import Params
+    from ngsdist_jax import runner
+    from ngsdist_jax.config import Params
 
     pars = Params(in_geno=str(tmp_path / geno),
                   in_bin=not geno.endswith(".gz"),
@@ -195,8 +195,8 @@ def test_run_distributed_extended_model(tmp_path):
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out
 
-    from ngsdist_tpu import runner
-    from ngsdist_tpu.config import Params
+    from ngsdist_jax import runner
+    from ngsdist_jax.config import Params
 
     pars = Params(in_geno=str(tmp_path / "gp.bin"), in_bin=True,
                   in_probs=True, n_ind=6, n_sites=57, seed=9,
@@ -247,8 +247,8 @@ def test_run_distributed_resume(tmp_path):
 
     # Simulate an interruption after 2 matrices: truncate the output and
     # plant a matching sidecar (what the graceful-stop path leaves).
-    from ngsdist_tpu.config import Params
-    from ngsdist_tpu.utils import checkpoint as ckpt
+    from ngsdist_jax.config import Params
+    from ngsdist_jax.utils import checkpoint as ckpt
 
     lines = full.splitlines(keepends=True)
     per_matrix = 6 + 2  # blank + count + n_ind rows
@@ -271,7 +271,7 @@ def test_run_distributed_resume(tmp_path):
 
 @pytest.mark.slow
 def test_run_distributed_f32_streamed(tmp_path):
-    """x64-OFF 2-process run — the real-TPU numeric regime: f32 engine
+    """x64-OFF 2-process run — the device numeric regime: f32 engine
     dtype, upload23 auto-ON (2-component SiteStream slabs + on-device
     expansion, PAD23 sentinels on round tails), streamed rounds with
     round checkpoints.  Must match a single-process f32 run at f32
@@ -303,8 +303,8 @@ def test_run_distributed_f32_streamed(tmp_path):
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out
 
-    from ngsdist_tpu import runner
-    from ngsdist_tpu.config import Params
+    from ngsdist_jax import runner
+    from ngsdist_jax.config import Params
 
     jax.config.update("jax_enable_x64", False)
     try:
@@ -453,10 +453,10 @@ jax.distributed.initialize(coordinator_address="127.0.0.1:" + port,
                            num_processes=nproc, process_id=pid)
 sys.path.insert(0, {repo!r})
 import jax.numpy as jnp
-from ngsdist_tpu.config import Params, default_score_matrix
-from ngsdist_tpu.parallel import mesh as pm
-from ngsdist_tpu.parallel import multihost as mh
-from ngsdist_tpu.parallel.mesh import _indep_sharded, shard_sites
+from ngsdist_jax.config import Params, default_score_matrix
+from ngsdist_jax.parallel import mesh as pm
+from ngsdist_jax.parallel import multihost as mh
+from ngsdist_jax.parallel.mesh import _indep_sharded, shard_sites
 
 mesh = pm.make_mesh()
 pars = Params(in_geno=os.path.join(workdir, "gp.bin"), in_bin=True,
@@ -497,8 +497,8 @@ def test_two_process_psum_matches_single(tmp_path):
 
     import jax.numpy as jnp
 
-    from ngsdist_tpu.config import default_score_matrix
-    from ngsdist_tpu.core.distance import indep_suffstats
+    from ngsdist_jax.config import default_score_matrix
+    from ngsdist_jax.core.distance import indep_suffstats
 
     raw1, _ = indep_suffstats(jnp.asarray(gp), jnp.asarray(default_score_matrix()), True)
     np.testing.assert_allclose(raw_mh, np.asarray(raw1), rtol=0, atol=1e-12)

@@ -52,7 +52,7 @@ def _run_cli(args, extra_env=None):
     if extra_env:
         env.update(extra_env)
     proc = subprocess.run(
-        [sys.executable, "-m", "ngsdist_tpu"] + args,
+        [sys.executable, "-m", "ngsdist_jax"] + args,
         capture_output=True, text=True, env=env, cwd=STDERR_DIR, timeout=600,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]

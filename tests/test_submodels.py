@@ -6,10 +6,10 @@ import gzip
 import numpy as np
 import pytest
 
-from ngsdist_tpu.config import NgsDistError, Params
-from ngsdist_tpu.core import bootstrap as bt
-from ngsdist_tpu.core import distance as dist
-from ngsdist_tpu.core import submodels as sm
+from ngsdist_jax.config import NgsDistError, Params
+from ngsdist_jax.core import bootstrap as bt
+from ngsdist_jax.core import distance as dist
+from ngsdist_jax.core import submodels as sm
 
 
 # ---------------- classification & base counts ---------------------- #
@@ -158,7 +158,7 @@ def _write_inputs(tmp_path, rng, S, N):
 
 
 def test_runner_extended_model_jax_vs_exact(tmp_path):
-    from ngsdist_tpu import runner
+    from ngsdist_jax import runner
 
     rng = np.random.default_rng(11)
     geno, pos = _write_inputs(tmp_path, rng, 30, 4)
@@ -201,7 +201,7 @@ def test_extended_mesh_matches_single(model, indep, pairwise_del):
     extended path, incl. bootstrap replicates."""
     import jax
 
-    from ngsdist_tpu.parallel import mesh as pm
+    from ngsdist_jax.parallel import mesh as pm
 
     assert len(jax.devices()) >= 8
     mesh = pm.make_mesh(n_devices=8)

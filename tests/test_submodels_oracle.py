@@ -36,7 +36,7 @@ import math
 import numpy as np
 import pytest
 
-from ngsdist_tpu.core import submodels as sm
+from ngsdist_jax.core import submodels as sm
 
 A, C, G, T = 0, 1, 2, 3
 PURINES = (A, G)

@@ -11,14 +11,14 @@ import struct
 import numpy as np
 import pytest
 
-from ngsdist_tpu import cli
-from ngsdist_tpu.config import Params, NgsDistError, default_score_matrix
-from ngsdist_tpu.core import bootstrap as bt
-from ngsdist_tpu.core import models
-from ngsdist_tpu.core.preprocess import call_geno_inplace, preprocess
-from ngsdist_tpu.io import readers, writers
-from ngsdist_tpu.utils import native as nat
-from ngsdist_tpu.utils.rng import TausRng, boot_block_indices
+from ngsdist_jax import cli
+from ngsdist_jax.config import Params, NgsDistError, default_score_matrix
+from ngsdist_jax.core import bootstrap as bt
+from ngsdist_jax.core import models
+from ngsdist_jax.core.preprocess import call_geno_inplace, preprocess
+from ngsdist_jax.io import readers, writers
+from ngsdist_jax.utils import native as nat
+from ngsdist_jax.utils.rng import TausRng, boot_block_indices
 
 
 class TestTausRng:
@@ -200,7 +200,7 @@ class TestConfig:
         (uint64 wraparound of the replicate bound) and
         --boot_block_size 0 hits n_sites % 0: both are clean exit-255
         fatals here (documented beyond-reference guards)."""
-        from ngsdist_tpu.config import NgsDistError, Params
+        from ngsdist_jax.config import NgsDistError, Params
 
         with pytest.raises(NgsDistError, match="cannot be negative"):
             Params(in_geno="x", n_ind=2, n_sites=5, out="y",
@@ -523,8 +523,8 @@ def test_two_column_pos_verbose4_dump_is_graceful(tmp_path, capfd):
     divergence, docs/PARITY.md)."""
     import gzip
 
-    from ngsdist_tpu import runner
-    from ngsdist_tpu.config import Params
+    from ngsdist_jax import runner
+    from ngsdist_jax.config import Params
 
     rng = np.random.default_rng(0)
     gp = rng.dirichlet(np.ones(3), size=(6, 3))
@@ -552,7 +552,7 @@ class TestStreamChunkPlanner:
     hard upper bound."""
 
     def test_headline_shape_gets_depth(self):
-        from ngsdist_tpu.core import distance as dist
+        from ngsdist_jax.core import distance as dist
 
         # 1024 ind x 1M sites f32 against the default 12 GiB/3 budget:
         # barely over budget -> old sizing gave 2 chunks, now 16.
@@ -564,7 +564,7 @@ class TestStreamChunkPlanner:
         assert -(-S // chunk) >= dist.STREAM_MIN_CHUNKS
 
     def test_budget_remains_upper_bound(self):
-        from ngsdist_tpu.core import distance as dist
+        from ngsdist_jax.core import distance as dist
 
         # tiny forced budgets (test fixtures) keep their exact old size
         S, N, itemsize = 1200, 20, 8
@@ -577,17 +577,17 @@ class TestStreamChunkPlanner:
         assert chunk == cap  # depth floor never exceeds the budget cap
 
     def test_small_streams_keep_min_chunk(self):
-        from ngsdist_tpu.core import distance as dist
+        from ngsdist_jax.core import distance as dist
 
         # S/16 below the floor: the 16k minimum wins (fetch overhead)
         chunk = dist._stream_chunk_sites(100_000, 64, 4, 1 << 62)
         assert chunk == dist.STREAM_MIN_CHUNK_SITES
 
     def test_sitestream_plan_depth_and_alignment(self):
-        from ngsdist_tpu.config import Params
-        from ngsdist_tpu.core import distance as dist
-        from ngsdist_tpu.parallel import make_mesh
-        from ngsdist_tpu.parallel.multihost import SiteStream
+        from ngsdist_jax.config import Params
+        from ngsdist_jax.core import distance as dist
+        from ngsdist_jax.parallel import make_mesh
+        from ngsdist_jax.parallel.multihost import SiteStream
 
         mesh = make_mesh(n_devices=8)
         pars = Params(in_geno="x", n_ind=64, n_sites=1 << 20, out="o",
@@ -619,21 +619,21 @@ class TestPipelinedChunks:
     exposed above the 183 s link floor)."""
 
     def test_order_and_completeness(self):
-        from ngsdist_tpu.core.distance import _pipelined_chunks
+        from ngsdist_jax.core.distance import _pipelined_chunks
 
         ranges = [(i, i + 1) for i in range(7)]
         out = list(_pipelined_chunks(ranges, lambda r: r, lambda r: r[0]))
         assert out == list(range(7))
 
     def test_empty(self):
-        from ngsdist_tpu.core.distance import _pipelined_chunks
+        from ngsdist_jax.core.distance import _pipelined_chunks
 
         assert list(_pipelined_chunks([], lambda r: r, lambda r: r)) == []
 
     def test_read_overlaps_send(self):
         import threading
 
-        from ngsdist_tpu.core.distance import _pipelined_chunks
+        from ngsdist_jax.core.distance import _pipelined_chunks
 
         # send(k) BLOCKS until read(k+1) has started: if the stages
         # shared a thread this deadlocks (the 5 s join below fails);
@@ -660,7 +660,7 @@ class TestPipelinedChunks:
         assert done == [0, 1, 2, 3]
 
     def test_read_error_propagates(self):
-        from ngsdist_tpu.core.distance import _pipelined_chunks
+        from ngsdist_jax.core.distance import _pipelined_chunks
 
         def read_fn(rng):
             if rng[0] == 2:

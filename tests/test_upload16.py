@@ -27,10 +27,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from ngsdist_tpu.core import distance as dist
-from ngsdist_tpu.parallel import mesh as pm
-from ngsdist_tpu.parallel import multihost as mh
-from ngsdist_tpu.utils import hostmem
+from ngsdist_jax.core import distance as dist
+from ngsdist_jax.parallel import mesh as pm
+from ngsdist_jax.parallel import multihost as mh
+from ngsdist_jax.utils import hostmem
 
 SCORE = np.array([[0, 0.5, 1], [0.5, 0, 0.5], [1, 0.5, 0]])
 
@@ -157,7 +157,7 @@ def test_suffstats_parity_vs_f32(monkeypatch, pairwise_del):
 def test_mesh_rounds_match_full_upload(mesh8, monkeypatch):
     """SiteStream staged rounds (uint16 buffers, PAD16 tails) must
     reproduce the resident sharded upload bit-for-bit."""
-    from ngsdist_tpu.config import Params
+    from ngsdist_jax.config import Params
 
     monkeypatch.setenv("NGSDIST_UPLOAD16", "1")
     S, N = 100, 6

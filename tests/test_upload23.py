@@ -18,10 +18,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ngsdist_tpu.core import distance as dist
-from ngsdist_tpu.parallel import mesh as pm
-from ngsdist_tpu.parallel import multihost as mh
-from ngsdist_tpu.utils import hostmem
+from ngsdist_jax.core import distance as dist
+from ngsdist_jax.parallel import mesh as pm
+from ngsdist_jax.parallel import multihost as mh
+from ngsdist_jax.utils import hostmem
 
 SCORE = np.array([[0, 0.5, 1], [0.5, 0, 0.5], [1, 0.5, 0]])
 
@@ -118,8 +118,8 @@ def test_empty_line_gz_e2e(tmp_path, monkeypatch):
     them as hom-alt calls.  f32 end-to-end through the runner."""
     import gzip
 
-    from ngsdist_tpu import runner
-    from ngsdist_tpu.config import Params
+    from ngsdist_jax import runner
+    from ngsdist_jax.config import Params
 
     jax.config.update("jax_enable_x64", False)
     try:
@@ -194,8 +194,8 @@ def test_streamed_bootstrap_pad23_sentinel(monkeypatch):
     With 2-component uploads the padding must round-trip through the
     PAD23 sentinel (mesh.expand23_sharded), or (0,0,1) ghost rows
     corrupt the partials.  f32 end-to-end, upload23 on vs off."""
-    from ngsdist_tpu.config import Params
-    from ngsdist_tpu.core import bootstrap as bt
+    from ngsdist_jax.config import Params
+    from ngsdist_jax.core import bootstrap as bt
 
     jax.config.update("jax_enable_x64", False)
     try:
@@ -226,7 +226,7 @@ def test_sitestream_rounds_match_full_upload(mesh8, monkeypatch):
     """SiteStream stores 2-component slabs (1/3 less host RAM) and
     expands per round on device; streamed suffstats must match the
     3-component stream."""
-    from ngsdist_tpu.config import Params
+    from ngsdist_jax.config import Params
 
     S, N = 203, 6
     P = _probs(S, N, seed=3)
